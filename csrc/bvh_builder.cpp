@@ -1,12 +1,12 @@
 // Native SAH BVH builder.
 //
-// Mirrors pbr_tpu/accel/bvh.py exactly (full-sweep SAH with stable
+// Mirrors pbrjax/accel/bvh.py exactly (full-sweep SAH with stable
 // centroid sorts, mean-split fallback above sah_faces_limit, larger-
 // surface-area child first, preorder linearization with escape indices,
 // epsilon-padded face AABBs) so the Python and native builders produce
 // byte-identical arrays — tests assert equality. The reference's builder
 // was the largest host component (source/accelstructures/BVH.cpp, 1,055
-// LoC C++); this is its TPU-framework counterpart for large scenes where
+// LoC C++); this is its counterpart for large scenes where
 // NumPy build time matters.
 //
 // C ABI for ctypes: pbr_build_bvh() fills a result struct of malloc'd

@@ -3,12 +3,12 @@
 
 import numpy as np
 
-from pbr_tpu.accel.bvh import build_bvh
-from pbr_tpu.ops.traverse import intersect_brute, intersect_bvh
-from pbr_tpu.ops.vec import Vec3
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.procedural import cornell_box, random_soup
-from pbr_tpu.utils.config import BVHConfig
+from pbrjax.accel.bvh import build_bvh
+from pbrjax.ops.traverse import intersect_brute, intersect_bvh
+from pbrjax.ops.vec import Vec3
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.procedural import cornell_box, random_soup
+from pbrjax.utils.config import BVHConfig
 
 
 def _soup_tris(n, seed=0):
@@ -85,7 +85,7 @@ def test_traversal_equals_brute_force_cornell_onsurface():
     scene, _ = scene_from_text(obj, mtl, li, use_bvh=True)
     r = np.random.RandomState(0)
     n = 50000
-    from pbr_tpu.ops.intersect import gather_vec3
+    from pbrjax.ops.intersect import gather_vec3
 
     faces = r.randint(0, scene.tris.count, n)
     u = r.rand(n).astype(np.float32)
@@ -186,8 +186,8 @@ def test_skip_ahead_invariants():
 def test_adaptive_leaf_size_big_scene():
     """Scenes over 20k faces build 64-face leaves (scene/build.py) and
     bvh_max_leaf reports the matching static traversal bound."""
-    from pbr_tpu.scene.build import bvh_max_leaf, scene_from_text
-    from pbr_tpu.scene.procedural import random_soup
+    from pbrjax.scene.build import bvh_max_leaf, scene_from_text
+    from pbrjax.scene.procedural import random_soup
 
     scene, _ = scene_from_text(random_soup(21_000, seed=2), use_bvh=True)
     ml = bvh_max_leaf(scene)

@@ -4,8 +4,8 @@ import math
 
 import numpy as np
 
-from pbr_tpu.scene.camera import Camera, make_camera_state, pixel_dim
-from pbr_tpu.utils.config import CameraConfig, Config, load_config
+from pbrjax.scene.camera import Camera, make_camera_state, pixel_dim
+from pbrjax.utils.config import CameraConfig, Config, load_config
 
 
 def test_basis_orthonormal():

@@ -1,8 +1,8 @@
-"""Color-matrix tool (pbr_tpu.tools.colormatrix) vs published constants."""
+"""Color-matrix tool (pbrjax.tools.colormatrix) vs published constants."""
 
 import numpy as np
 
-from pbr_tpu.tools.colormatrix import (
+from pbrjax.tools.colormatrix import (
     COLOR_SYSTEMS,
     legacy_scale,
     rgb_to_xyz_matrix,

@@ -14,11 +14,11 @@ pytestmark = pytest.mark.slow
 import jax
 import jax.numpy as jnp
 
-from pbr_tpu.models.integrator import trace_rays
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.camera import make_camera_state
-from pbr_tpu.scene.procedural import cornell_box
-from pbr_tpu.utils.config import BRDF_SCHLICK, BRDF_SHIRLEY_ASHIKHMIN, RenderSettings
+from pbrjax.models.integrator import trace_rays
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.camera import make_camera_state
+from pbrjax.scene.procedural import cornell_box
+from pbrjax.utils.config import BRDF_SCHLICK, BRDF_SHIRLEY_ASHIKHMIN, RenderSettings
 
 
 SIZE = 24
@@ -138,8 +138,8 @@ def test_overflow_warning_and_golden_gate(cornell):
     render within the golden gate (drops bias only deep-extension lanes)."""
     import io
 
-    from pbr_tpu.models.pathtracer import PathTracer
-    from pbr_tpu.utils.log import Logger
+    from pbrjax.models.pathtracer import PathTracer
+    from pbrjax.utils.log import Logger
 
     scene, cam = cornell
     base = RenderSettings(
@@ -173,7 +173,7 @@ def test_overflow_warning_and_golden_gate(cornell):
 def test_auto_compact_schedule_probe(cornell):
     """compact_schedule='auto' derives caps from the occupancy probe; the
     derived schedule renders with zero drops."""
-    from pbr_tpu.models.pathtracer import PathTracer, probe_compact_schedule
+    from pbrjax.models.pathtracer import PathTracer, probe_compact_schedule
 
     scene, cam = cornell
     base = RenderSettings(

@@ -9,7 +9,7 @@ numpy and jax paths agree.
 import numpy as np
 import pytest
 
-from pbr_tpu.ops.denoise import denoise_render, first_hit_features, noise_filter
+from pbrjax.ops.denoise import denoise_render, first_hit_features, noise_filter
 
 
 def _synthetic():
@@ -58,10 +58,10 @@ def test_filter_jax_matches_numpy():
 
 @pytest.fixture(scope="module")
 def cornell_small():
-    from pbr_tpu.scene.build import scene_from_text
-    from pbr_tpu.scene.camera import make_camera_state
-    from pbr_tpu.scene.procedural import cornell_box
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.scene.build import scene_from_text
+    from pbrjax.scene.camera import make_camera_state
+    from pbrjax.scene.procedural import cornell_box
+    from pbrjax.utils.config import RenderSettings
 
     obj, mtl, li = cornell_box()
     scene, _ = scene_from_text(obj, mtl, li, use_bvh=False)
@@ -87,7 +87,7 @@ def test_first_hit_features_finite(cornell_small):
 
 
 def test_denoise_real_render_improves_mse(cornell_small):
-    from pbr_tpu.models.integrator import trace_rays
+    from pbrjax.models.integrator import trace_rays
 
     scene, cam, settings = cornell_small
     w, h = settings.width, settings.height

@@ -14,8 +14,8 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from pbr_tpu.models.integrator import trace_rays
-from pbr_tpu.scene.types import Scene
+from pbrjax.models.integrator import trace_rays
+from pbrjax.scene.types import Scene
 from util import cornell_scene, to_jax
 
 
@@ -110,10 +110,10 @@ def test_camera_eye_grads():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.scene.build import scene_from_text
-    from pbr_tpu.scene.camera import make_camera_state
-    from pbr_tpu.scene.procedural import single_triangle
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.scene.build import scene_from_text
+    from pbrjax.scene.camera import make_camera_state
+    from pbrjax.scene.procedural import single_triangle
+    from pbrjax.utils.config import RenderSettings
 
     obj, mtl, _ = single_triangle()
     lights = "newlight l\ntype 2\npos 0.5 2.0 1.0\nradius 0.05\nrgb 3 3 3\n"

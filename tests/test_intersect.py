@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from pbr_tpu.ops.intersect import moller_trumbore, slab_box, sphere
-from pbr_tpu.ops.vec import Vec3
+from pbrjax.ops.intersect import moller_trumbore, slab_box, sphere
+from pbrjax.ops.vec import Vec3
 
 
 def v3(x, y, z):

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from pbr_tpu.io.lights import parse_lights
-from pbr_tpu.io.mtl import parse_mtl
-from pbr_tpu.io.obj import parse_obj
+from pbrjax.io.lights import parse_lights
+from pbrjax.io.mtl import parse_mtl
+from pbrjax.io.obj import parse_obj
 
 
 def test_mtl_defaults_and_extensions():

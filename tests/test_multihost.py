@@ -17,8 +17,8 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from pbr_tpu.parallel.mesh import make_mesh, sharded_render
-from pbr_tpu.parallel.multihost import (
+from pbrjax.parallel.mesh import make_mesh, sharded_render
+from pbrjax.parallel.multihost import (
     global_mesh,
     host_local_pixel_ids,
     shard_index_map,

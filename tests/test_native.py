@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from pbr_tpu.accel.bvh import build_bvh
-from pbr_tpu.accel.native import available, build_bvh_native
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.procedural import cornell_box, random_soup
-from pbr_tpu.utils.config import BVHConfig
+from pbrjax.accel.bvh import build_bvh
+from pbrjax.accel.native import available, build_bvh_native
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.procedural import cornell_box, random_soup
+from pbrjax.utils.config import BVHConfig
 
 pytestmark = pytest.mark.skipif(not available(), reason="native builder unavailable")
 

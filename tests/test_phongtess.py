@@ -6,18 +6,18 @@ pytestmark = pytest.mark.slow
 
 import numpy as np
 
-from pbr_tpu.ops.phongtess import (
+from pbrjax.ops.phongtess import (
     face_is_flat,
     intersect_brute_phongtess,
     phongtess_patch_intersect,
     solve_cubic,
 )
-from pbr_tpu.ops.traverse import intersect_brute
-from pbr_tpu.ops.vec import Vec3
-from pbr_tpu.reference.cpu import render_cpu
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.camera import make_camera_state
-from pbr_tpu.utils.config import RenderSettings
+from pbrjax.ops.traverse import intersect_brute
+from pbrjax.ops.vec import Vec3
+from pbrjax.reference.cpu import render_cpu
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.camera import make_camera_state
+from pbrjax.utils.config import RenderSettings
 
 
 def _roots_set(x0, x1, x2, count):
@@ -144,7 +144,7 @@ def test_jax_matches_numpy_phongtess():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.models.integrator import trace_rays
+    from pbrjax.models.integrator import trace_rays
 
     scene = _bumpy_tri_scene()
     cam = make_camera_state(eye=(0.0, 0.5, 2.0), center_dir=(0.0, 0.0, 1.0))

@@ -15,16 +15,16 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from pbr_tpu.ops.phongtess import (
+from pbrjax.ops.phongtess import (
     intersect_brute_phongtess,
     intersect_scene_phongtess,
     phongtess_face_aabbs,
 )
-from pbr_tpu.ops.vec import Vec3
-from pbr_tpu.reference.cpu import render_cpu
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.camera import make_camera_state
-from pbr_tpu.utils.config import RenderSettings
+from pbrjax.ops.vec import Vec3
+from pbrjax.reference.cpu import render_cpu
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.camera import make_camera_state
+from pbrjax.utils.config import RenderSettings
 
 ALPHA = np.float32(0.8)
 
@@ -95,7 +95,7 @@ def test_inflated_aabbs_contain_patch():
     n1, n2, n3 = tris.n0.stack(np), tris.n1.stack(np), tris.n2.stack(np)
     bb_min, bb_max = phongtess_face_aabbs(p1, p2, p3, n1, n2, n3, ALPHA)
 
-    from pbr_tpu.ops.phongtess import _tess_point
+    from pbrjax.ops.phongtess import _tess_point
 
     eps = 1e-4
     for u in np.linspace(0, 1, 9):
@@ -147,7 +147,7 @@ def test_jax_bvh_phongtess_matches_numpy():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.models.integrator import trace_rays
+    from pbrjax.models.integrator import trace_rays
 
     obj = _wavy_sheet_obj(4)
     settings = RenderSettings(
@@ -188,8 +188,8 @@ def test_bvh_phongtess_grads_flow():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.models.integrator import trace_rays
-    from pbr_tpu.scene.types import Scene
+    from pbrjax.models.integrator import trace_rays
+    from pbrjax.scene.types import Scene
 
     obj = _wavy_sheet_obj(3)
     settings = RenderSettings(
@@ -216,13 +216,13 @@ def test_bvh_phongtess_grads_flow():
 
 
 def test_cluster_phongtess_search_matches_brute():
-    """The dense cluster-candidate search (the fast TPU path,
+    """The dense cluster-candidate search (the large-batch jax path,
     intersect_clusters_phongtess) must find the same winning faces as the
     brute per-face sweep on an all-curved scene."""
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.ops.phongtess import intersect_clusters_phongtess
+    from pbrjax.ops.phongtess import intersect_clusters_phongtess
 
     obj = _wavy_sheet_obj(12)  # 288 curved faces -> clusters built
     scene, _ = scene_from_text(

@@ -18,8 +18,8 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_parse_suzanne():
-    from pbr_tpu.io.loader import load_model
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.io.loader import load_model
+    from pbrjax.utils.config import RenderSettings
 
     settings = RenderSettings(width=64, height=64, shadow_rays=1)
     scene, settings, obj = load_model(os.path.join(REF, "suzanne.obj"), settings)
@@ -35,10 +35,10 @@ def test_parse_suzanne():
 
 
 def test_render_suzanne_cpu():
-    from pbr_tpu.io.loader import load_model
-    from pbr_tpu.reference.cpu import render_cpu
-    from pbr_tpu.scene.camera import make_camera_state
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.io.loader import load_model
+    from pbrjax.reference.cpu import render_cpu
+    from pbrjax.scene.camera import make_camera_state
+    from pbrjax.utils.config import RenderSettings
 
     settings = RenderSettings(
         width=32, height=32, samples=1, max_depth=2, max_added_depth=1,
@@ -53,7 +53,7 @@ def test_render_suzanne_cpu():
 
 
 def test_parse_all_reference_scenes():
-    from pbr_tpu.io.obj import parse_obj_file
+    from pbrjax.io.obj import parse_obj_file
 
     for name in ["spheres", "pillars", "squirrels", "squirrel-mirror", "applejack2"]:
         obj = parse_obj_file(os.path.join(REF, f"{name}.obj"))
@@ -72,11 +72,11 @@ def test_render_suzanne_jit_golden():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.io.loader import load_model
-    from pbr_tpu.models.integrator import trace_rays
-    from pbr_tpu.reference.cpu import render_cpu
-    from pbr_tpu.scene.camera import make_camera_state
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.io.loader import load_model
+    from pbrjax.models.integrator import trace_rays
+    from pbrjax.reference.cpu import render_cpu
+    from pbrjax.scene.camera import make_camera_state
+    from pbrjax.utils.config import RenderSettings
 
     settings = RenderSettings(
         width=64, height=64, samples=1, max_depth=2, max_added_depth=1,

@@ -1,4 +1,4 @@
-"""Golden tests: TPU-path renderer vs the CPU oracle tracer.
+"""Golden tests: jax-path renderer vs the CPU oracle tracer.
 
 Gate semantics (documented, deliberate): XLA fuses FMAs and uses its own
 libm, so float results differ from NumPy by ULPs; a path tracer is chaotic,
@@ -13,8 +13,8 @@ import functools
 import numpy as np
 import pytest
 
-from pbr_tpu.models.integrator import trace_rays
-from pbr_tpu.reference.cpu import render_cpu
+from pbrjax.models.integrator import trace_rays
+from pbrjax.reference.cpu import render_cpu
 from util import cornell_scene, to_jax, tri_scene
 
 
@@ -68,7 +68,7 @@ def test_cornell_matches_oracle_schlick():
 def test_bvh_equals_brute_force_render():
     """Exact (bitwise) equality on the same backend: swapping the
     acceleration structure must not change the image at all."""
-    from pbr_tpu.scene.types import Scene
+    from pbrjax.scene.types import Scene
 
     scene, cam, settings = cornell_scene(use_bvh=True)
     scene_nb = Scene(tris=scene.tris, bvh=None, materials=scene.materials, lights=scene.lights)
@@ -89,7 +89,7 @@ def test_progressive_accumulation_reduces_noise():
     16-frame accumulations is far below single-frame variance."""
     import jax.numpy as jnp
 
-    from pbr_tpu.models.pathtracer import FrameState, init_frame_state, render_frame
+    from pbrjax.models.pathtracer import FrameState, init_frame_state, render_frame
 
     scene, cam, settings = cornell_scene(use_bvh=True, width=32, height=32)
     npx = settings.width * settings.height

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from pbr_tpu.ops import rng as R
+from pbrjax.ops import rng as R
 
 
 def test_deterministic():

@@ -1,6 +1,6 @@
 """Independent-oracle tests: scalar tracer ≡ numpy integrator ≡ jax integrator.
 
-``pbr_tpu.reference.scalar`` is a straight-line per-pixel tracer sharing no
+``pbrjax.reference.scalar`` is a straight-line per-pixel tracer sharing no
 code with ``models/integrator.py`` (its own vec math, BRDFs, RNG hash, and
 the reference's *dynamic* control flow instead of wavefront masks). Agreement
 here is evidence the integrator's logic is right, not merely that two
@@ -14,8 +14,8 @@ pixel with a tiny mean.
 import numpy as np
 import pytest
 
-from pbr_tpu.models.integrator import trace_rays
-from pbr_tpu.reference.scalar import _uniform, render_scalar
+from pbrjax.models.integrator import trace_rays
+from pbrjax.reference.scalar import _uniform, render_scalar
 from util import cornell_scene, to_jax, tri_scene
 
 
@@ -86,7 +86,7 @@ def test_scalar_matches_jax_integrator(name, make, seed):
 def test_scalar_rng_matches_rng_module():
     """The inline pure-Python hash must reproduce ops/rng.py exactly —
     an independent check of the RNG's uint32 arithmetic."""
-    from pbr_tpu.ops import rng as rng_mod
+    from pbrjax.ops import rng as rng_mod
 
     rs = np.random.RandomState(0)
     for _ in range(50):

@@ -12,8 +12,8 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from pbr_tpu.models.integrator import trace_rays
-from pbr_tpu.parallel.mesh import (
+from pbrjax.models.integrator import trace_rays
+from pbrjax.parallel.mesh import (
     _shard_seed,
     make_mesh,
     sharded_render,
@@ -78,7 +78,7 @@ def test_sharded_grads_match_single_device():
     import jax
     import jax.numpy as jnp
 
-    from pbr_tpu.scene.types import Scene
+    from pbrjax.scene.types import Scene
 
     scene, cam, settings = cornell_scene(
         use_bvh=False, width=16, height=16, max_depth=2, max_added_depth=0
@@ -123,6 +123,37 @@ def test_sharded_grads_match_single_device():
     assert checked > 10  # materials + lights + camera leaves
 
 
+def test_train_step_over_pixel_partition_sums_to_full_frame():
+    """Steps over a partition of the frame (``pixel_ids``) keep the full
+    frame's normalization: their losses and grads sum to the full step's."""
+    import jax
+    import jax.numpy as jnp
+
+    scene, cam, settings = cornell_scene(
+        use_bvh=False, width=16, height=16, max_depth=2, max_added_depth=0
+    )
+    jscene, jcam = to_jax(scene), to_jax(cam)
+    npx = settings.width * settings.height
+    target = np.full((npx, 3), 0.5, dtype=np.float32)
+    mesh = make_mesh(n_dp=2, n_sp=1)
+    loss, grads, _ = sharded_train_step(mesh, jscene, jcam, settings, target, 9)
+    parts = [
+        sharded_train_step(mesh, jscene, jcam, settings, target[sl], 9,
+                           pixel_ids=jnp.arange(npx, dtype=jnp.int32)[sl])
+        for sl in (slice(0, npx // 4), slice(npx // 4, npx))
+    ]
+    np.testing.assert_allclose(sum(float(p[0]) for p in parts), float(loss), rtol=1e-5)
+    leaves = [jax.tree_util.tree_leaves(g) for g in (grads, parts[0][1], parts[1][1])]
+    checked = 0
+    for g, a, b in zip(*leaves):
+        if g.dtype == jax.dtypes.float0:
+            continue
+        np.testing.assert_allclose(np.asarray(a) + np.asarray(b), np.asarray(g),
+                                   rtol=1e-4, atol=1e-5)
+        checked += 1
+    assert checked > 10
+
+
 def test_sgd_step_reduces_loss():
     import jax
 
@@ -133,7 +164,7 @@ def test_sgd_step_reduces_loss():
     npx = settings.width * settings.height
     target = np.zeros((npx, 3), dtype=np.float32)
     mesh = make_mesh(n_dp=4, n_sp=2)
-    from pbr_tpu.scene.types import Scene
+    from pbrjax.scene.types import Scene
 
     loss0, grads, params = sharded_train_step(
         mesh, jscene, jcam, settings, target, frame_seed=1, lr=0.05
@@ -144,52 +175,3 @@ def test_sgd_step_reduces_loss():
         mesh, scene1, camst, settings, target, frame_seed=1, lr=0.0
     )
     assert float(loss1) < float(loss0)
-
-
-def test_cull_intersector_composes_with_shard_map():
-    """The cull-and-sweep Pallas path (interpret mode on this CPU mesh)
-    must run inside shard_map with the ClusterSet replicated and the ray
-    batch dp-sharded, and agree with the unsharded call."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from pbr_tpu.accel.clusters import build_clusters
-    from pbr_tpu.ops.pallas_cull import intersect_cull
-    from pbr_tpu.ops.vec import Vec3
-    from pbr_tpu.scene.build import scene_from_text
-    from pbr_tpu.scene.procedural import random_soup
-
-    scene, _ = scene_from_text(random_soup(300, seed=8), use_bvh=True)
-    cset = jax.tree_util.tree_map(
-        jnp.asarray, build_clusters(scene.tris, size=64)
-    )
-    rs = np.random.RandomState(2)
-    n = 512
-    o = rs.uniform(-2, 2, size=(n, 3)).astype(np.float32)
-    d = rs.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ov = Vec3(*(jnp.asarray(o[:, i]) for i in range(3)))
-    dv = Vec3(*(jnp.asarray(d[:, i]) for i in range(3)))
-
-    mesh = make_mesh(n_dp=8, n_sp=1)
-    # check_vma=False: interpret-mode pallas evaluates index_maps as jax
-    # primitives, where the dp-varying prefetched candidate ids index the
-    # unvarying coefficient table — a vma-propagation case jax's checker
-    # cannot express yet (the compiled TPU path carries the out_shape vma
-    # that ops/pallas_cull.py forwards).
-    f = jax.shard_map(
-        lambda cs, ox, oy, oz, dx, dy, dz: intersect_cull(
-            jnp, Vec3(ox, oy, oz), Vec3(dx, dy, dz), cs,
-            tile=64, slots=8, interpret=True,
-        )[1],
-        mesh=mesh,
-        in_specs=(P(),) + (P("dp"),) * 6,
-        out_specs=P("dp"),
-        check_vma=False,
-    )
-    f_sharded = f(cset, ov.x, ov.y, ov.z, dv.x, dv.y, dv.z)
-    _, f_plain = intersect_cull(
-        jnp, ov, dv, cset, tile=64, slots=8, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(f_sharded), np.asarray(f_plain))

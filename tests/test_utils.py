@@ -5,9 +5,9 @@ import zlib
 
 import numpy as np
 
-from pbr_tpu.utils.image import save_render, tonemap, write_png, write_ppm
-from pbr_tpu.utils.log import Logger, format_bytes
-from pbr_tpu.utils.profiling import StageTimer
+from pbrjax.utils.image import save_render, tonemap, write_png, write_ppm
+from pbrjax.utils.log import Logger, format_bytes
+from pbrjax.utils.profiling import StageTimer
 
 
 def test_format_bytes():
@@ -62,8 +62,8 @@ def test_stage_timer():
 def test_checkpoint_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from pbr_tpu.models.pathtracer import init_frame_state
-    from pbr_tpu.utils import checkpoint as ck
+    from pbrjax.models.pathtracer import init_frame_state
+    from pbrjax.utils import checkpoint as ck
 
     state = init_frame_state(jnp, 64)
     state = state._replace(sample_count=state.sample_count + 5)
@@ -77,7 +77,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_cli_render_smoke(tmp_path):
-    from pbr_tpu import app
+    from pbrjax import app
 
     out = str(tmp_path / "r.png")
     ck = str(tmp_path / "ck")

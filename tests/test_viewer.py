@@ -1,4 +1,4 @@
-"""Interactive viewer (pbr_tpu/viewer.py): scripted-key loop, camera →
+"""Interactive viewer (pbrjax/viewer.py): scripted-key loop, camera →
 progressive restart, light-move mode, terminal blit plumbing. The reference
 tested this surface by hand in its Qt window (Window.cpp:178-242,
 GLWidget.cpp:80-84); here the loop is scriptable and asserted."""
@@ -7,10 +7,10 @@ import io
 
 import numpy as np
 
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.procedural import cornell_box
-from pbr_tpu.utils.config import CameraConfig, RenderSettings
-from pbr_tpu.viewer import Viewer, ansi_halfblocks, downsample, tonemap_u8
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.procedural import cornell_box
+from pbrjax.utils.config import CameraConfig, RenderSettings
+from pbrjax.viewer import Viewer, ansi_halfblocks, downsample, tonemap_u8
 
 
 def _make_viewer(**kw):
@@ -104,7 +104,7 @@ def test_blit_helpers():
 
 
 def test_cli_view_smoke():
-    from pbr_tpu.app import main
+    from pbrjax.app import main
 
     main([
         "view", "--scene", "cornell", "--size", "16", "--frames", "2",
@@ -147,7 +147,7 @@ def test_cli_eye_center_flags(tmp_path):
     """--eye/--center replace the hardcoded Cornell camera (app.py)."""
     import os
 
-    from pbr_tpu.app import main
+    from pbrjax.app import main
 
     out = str(tmp_path / "e.png")
     main([
@@ -177,7 +177,7 @@ def test_draft_then_refine_swaps_tracer():
     v.run(max_frames=v.frame + 2, draw=False)
     # Production step swapped in (PathTracer additionally auto-derives the
     # opaque-scene static flag — scene/build.py::derive_static_flags).
-    from pbr_tpu.scene.build import derive_static_flags
+    from pbrjax.scene.build import derive_static_flags
 
     assert v.tracer.settings == derive_static_flags(scene, settings)
     assert v.tracer.sample_count >= 1
@@ -189,10 +189,10 @@ def test_overlay_toggle_keys_and_startup_breakdown(tmp_path):
     the startup breakdown artifact records the first-frame stages."""
     import json
 
-    from pbr_tpu.scene.build import scene_from_text
-    from pbr_tpu.scene.procedural import cornell_box
-    from pbr_tpu.utils.config import RenderSettings
-    from pbr_tpu.viewer import Viewer
+    from pbrjax.scene.build import scene_from_text
+    from pbrjax.scene.procedural import cornell_box
+    from pbrjax.utils.config import RenderSettings
+    from pbrjax.viewer import Viewer
 
     obj, mtl, li = cornell_box()
     scene, _ = scene_from_text(obj, mtl, li, use_bvh=True)

@@ -4,10 +4,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.camera import make_camera_state
-from pbr_tpu.scene.procedural import cornell_box, single_triangle
-from pbr_tpu.utils.config import RenderSettings
+from pbrjax.scene.build import scene_from_text
+from pbrjax.scene.camera import make_camera_state
+from pbrjax.scene.procedural import cornell_box, single_triangle
+from pbrjax.utils.config import RenderSettings
 
 
 def tri_scene(use_bvh: bool = False):

@@ -34,9 +34,9 @@ SEED = 5
 
 
 def _scene_and_cam():
-    from pbr_tpu.scene.build import scene_from_text
-    from pbr_tpu.scene.camera import make_camera_state
-    from pbr_tpu.scene.procedural import cornell_box
+    from pbrjax.scene.build import scene_from_text
+    from pbrjax.scene.camera import make_camera_state
+    from pbrjax.scene.procedural import cornell_box
 
     obj, mtl, li = cornell_box()
     scene, _ = scene_from_text(obj, mtl, li, use_bvh=False)
@@ -45,7 +45,7 @@ def _scene_and_cam():
 
 
 def _settings():
-    from pbr_tpu.utils.config import RenderSettings
+    from pbrjax.utils.config import RenderSettings
 
     return RenderSettings(
         width=SIZE, height=SIZE, samples=1, max_depth=2, max_added_depth=1,
@@ -86,7 +86,7 @@ def child(process_id: int, coordinator: str) -> None:
     assert len(jax.devices()) == 8, len(jax.devices())
     assert len(jax.local_devices()) == 4
 
-    from pbr_tpu.parallel.multihost import global_mesh, multihost_train_step
+    from pbrjax.parallel.multihost import global_mesh, multihost_train_step
 
     mesh = global_mesh()
     scene, cam = _scene_and_cam()
@@ -136,12 +136,14 @@ def main() -> None:
             raise SystemExit(f"child failed rc={p.returncode}")
     assert set(results) == {0, 1}, f"missing child results: {results.keys()}"
 
-    # Single-process reference (virtual 8-device mesh in THIS process).
+    # Single-process reference (virtual 8-device mesh in THIS process,
+    # pinned to the CPU like the children — it never opens a GPU).
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from pbr_tpu.parallel.mesh import make_mesh, sharded_train_step
+    from pbrjax.parallel.mesh import make_mesh, sharded_train_step
 
     scene, cam = _scene_and_cam()
     loss_ref, grads_ref, _ = sharded_train_step(
